@@ -3,9 +3,9 @@
 # src/single_group/Dockerfile; pulled by every Nextflow module). One image
 # serves both engines here because both are the same JAX package.
 #
-# CPU image by default. For TPU hosts, swap the pip line for
-#   pip install --no-cache-dir "jax[tpu]" -f https://storage.googleapis.com/jax-releases/libtpu_releases.html
-# and run with --privileged on a TPU VM.
+# CPU image by default. For NVIDIA GPU hosts, swap "jax>=0.9" for
+# "jax[cuda12]>=0.9" and run with --gpus all. pandas is only needed by the
+# BED/gemBS preprocess verbs and BED export.
 
 FROM python:3.12-slim
 

@@ -1,9 +1,9 @@
-"""hygeia_tpu: a TPU-native (JAX/XLA/Pallas) framework for DNA-methylation
-change-point segmentation and differential methylation analysis.
+"""hygeia_tpu: a JAX/XLA framework for DNA-methylation change-point
+segmentation and differential methylation analysis, run on NVIDIA GPUs.
 
 Re-designed from scratch with the capabilities of ucl-medical-genomics/hygeia
 (reference: Nextflow + C++/R single-group SMC engine + TF/TFP two-group
-particle filter), built TPU-first:
+particle filter), built for accelerators:
 
 - All inference hot loops are ``lax.scan`` bodies compiled by XLA.
 - Particle sets use static shapes with -inf-masked log-weights.

@@ -251,8 +251,10 @@ void format_rows_f(const int64_t* index, const double* data, int64_t n_cols,
     for (int64_t c = 0; c < n_cols; ++c) {
       if (c) *p++ = sep;
       double v = row[c];
-      if (v == static_cast<double>(static_cast<int64_t>(v)) &&
-          v > -1e15 && v < 1e15) {
+      // Range test first: casting NaN, inf or a value outside int64 to
+      // int64 is undefined behaviour.
+      if (v > -1e15 && v < 1e15 &&
+          v == static_cast<double>(static_cast<int64_t>(v))) {
         // Integral values print without a decimal point, then ".0" —
         // matching repr(float) for integral floats ("1.0", "0.0").
         p = write_int(p, static_cast<int64_t>(v));

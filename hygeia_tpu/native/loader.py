@@ -1,7 +1,7 @@
 """ctypes binding for the native gzip CSV loader (fastload.cpp).
 
-`load_matrix(path)` returns a float64 (rows, cols) array. Falls back to
-pandas transparently when the shared library has not been built — call
+`load_matrix(path)` returns a float64 (rows, cols) array. Callers fall back
+to NumPy readers and writers when the shared library cannot be built — call
 `hygeia_tpu/native/build.sh` (or `ensure_built()`) to compile it.
 """
 
@@ -104,12 +104,11 @@ def write_int_table_gz(path, values, *, index=None, header=None, sep="\t",
     """Write an integer table as gzip CSV via the native writer
     (fastwrite_table): per-thread row ranges are formatted with a tight
     itoa and deflated as independent gzip members, so decompressed bytes
-    match pandas' to_csv for int tables at a fraction of the cost
-    (pandas' object-formatting CSV path measured ~20 s on the aggregate
-    stage's nine production tables).
+    match pandas' to_csv for int tables at a fraction of the cost of a
+    Python formatter.
 
     Returns True on success; False if the native library is unavailable
-    (caller falls back to pandas)."""
+    (caller falls back to utils/io.write_csv)."""
     lib = _get_lib()
     if lib is None or not hasattr(lib, "fastwrite_table"):
         return False
@@ -142,8 +141,7 @@ def write_float_table_gz(path, values, *, index=None, header=None, sep=",",
     """Write a float table as gzip CSV via the native writer
     (fastwrite_ftable): %.9g round-trips float32 values exactly (readers
     parse identical f32), though the textual form can differ from pandas'
-    shortest-repr (documented in PARITY.md). pandas' float to_csv cost
-    ~10 s over the theta-stage outputs at chromosome scale.
+    shortest-repr (documented in PARITY.md).
 
     Returns True on success; False if unavailable (caller falls back)."""
     lib = _get_lib()

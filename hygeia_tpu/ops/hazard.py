@@ -2,7 +2,7 @@
 sojourn model, plus their theta-gradients.
 
 The reference memoises these per (regime, sojourn) with on-demand extension
-(singleGroup.h:117-150, extendAuxiliaryQuantities :271-335). On TPU we instead
+(singleGroup.h:117-150, extendAuxiliaryQuantities :271-335). Here we instead
 precompute fixed-size (R, D_max) tables in one vectorised cumsum pass — XLA
 fuses the whole construction, and gathers into the table are cheap. Sojourn
 times are clamped to D_max at lookup; choose D_max >= segment length for
@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from jax.scipy.special import digamma
+from jax.scipy.special import betainc, betaln, digamma
 
 from hygeia_tpu.ops.distributions import neg_binomial_log_pmf
 
@@ -40,6 +40,30 @@ def _exclusive_cumsum(x):
     catastrophic cancellation of cumsum(x) - x when 1 - bigH is near ulp)."""
     shifted = jnp.concatenate([jnp.zeros_like(x[:, :1]), x[:, :-1]], axis=1)
     return jnp.cumsum(shifted, axis=1)
+
+
+def _survival_prev(little_h, shifted, kappa, omega, d, u):
+    """(1 - bigHprev, exit_status): the survival before each sojourn and the
+    C++ exit latch.
+
+    float64 reproduces the reference's double recursion bit-for-bit: an
+    exclusive running sum of littleH, latched once it reaches 1. In float32
+    that recursion cancels — 1 - bigH keeps few digits once the survival
+    falls below ~1e-4 — and its value then depends on the device's summation
+    order (a GPU's parallel cumsum and a CPU's sequential one disagree by
+    up to 0.25 in rho). So float32 takes the survival in closed form,
+    S(k-1) = I_omega(k, kappa) as rho_two_group does, and latches where it
+    falls to float32's resolution below 1: where the float32 running sum
+    would reach 1."""
+    if little_h.dtype == jnp.float64:
+        big_h_prev = _exclusive_cumsum(little_h)
+        surv = 1.0 - big_h_prev
+        at_one = big_h_prev >= 1.0
+    else:
+        surv = jnp.where(d > u, betainc(jnp.maximum(shifted, 1.0), kappa, omega), 1.0)
+        at_one = surv <= jnp.finfo(surv.dtype).epsneg
+    exit_status = jnp.cumsum(at_one.astype(jnp.int32), axis=1) > 0
+    return surv, exit_status
 
 
 def _sojourns(d_max, dtype):
@@ -73,17 +97,15 @@ def hazard_table(kappa, omega, u, d_max):
     kappa = kappa[:, None].astype(dtype)
     omega = omega[:, None].astype(dtype)
 
+    shifted = jnp.maximum(d - u, 0.0)
     little_h = jnp.where(
-        d >= u,
-        jnp.exp(neg_binomial_log_pmf(jnp.maximum(d - u, 0.0), kappa, omega)),
-        0.0,
+        d >= u, jnp.exp(neg_binomial_log_pmf(shifted, kappa, omega)), 0.0
     )
-    big_h_prev = _exclusive_cumsum(little_h)  # sum over strictly smaller idx
-    exit_status = jnp.cumsum((big_h_prev >= 1.0).astype(jnp.int32), axis=1) > 0
+    surv_prev, exit_status = _survival_prev(little_h, shifted, kappa, omega, d, u)
     rho = jnp.where(
         d < u,
         0.0,
-        jnp.where(exit_status, 1.0, little_h / (1.0 - big_h_prev)),
+        jnp.where(exit_status, 1.0, little_h / surv_prev),
     )
     return rho, exit_status
 
@@ -112,16 +134,17 @@ def hazard_table_with_grads(kappa, omega, u, d_max, kappa_fixed=True):
     little_h = jnp.where(
         d >= u, jnp.exp(neg_binomial_log_pmf(shifted, kappa_c, omega_c)), 0.0
     )
-    big_h_prev = _exclusive_cumsum(little_h)
-    exit_status = jnp.cumsum((big_h_prev >= 1.0).astype(jnp.int32), axis=1) > 0
+    surv_prev, exit_status = _survival_prev(
+        little_h, shifted, kappa_c, omega_c, d, u
+    )
     rho = jnp.where(
         d < u,
         0.0,
-        jnp.where(exit_status, 1.0, little_h / (1.0 - big_h_prev)),
+        jnp.where(exit_status, 1.0, little_h / surv_prev),
     )
     # Denominator with the reference's clamp after the exit latch
     # (singleGroup.h:311 sets bigH[d-1] = 0.99999 once exceeded).
-    denom = 1.0 - jnp.where(exit_status, _BIG_H_CLAMP, big_h_prev)
+    denom = jnp.where(exit_status, 1.0 - _BIG_H_CLAMP, surv_prev)
 
     # d log h / d theta_omega, theta_omega = logit(omega) (singleGroup.h:322).
     g_om_log_h = jnp.where(
@@ -129,7 +152,21 @@ def hazard_table_with_grads(kappa, omega, u, d_max, kappa_fixed=True):
         (shifted / omega_c - kappa_c / (1.0 - omega_c)) * omega_c * (1.0 - omega_c),
         0.0,
     )
-    g_om_big_h_prev = _exclusive_cumsum(little_h * g_om_log_h)
+    if dtype == jnp.float64:
+        g_om_big_h_prev = _exclusive_cumsum(little_h * g_om_log_h)
+    else:
+        # The running sum of d littleH / d theta_omega cancels like bigH
+        # (see _survival_prev); in closed form it is -dS(k-1)/dtheta_omega
+        # = -omega^k (1 - omega)^kappa / B(k, kappa) for k = d - u >= 1.
+        k = jnp.maximum(shifted, 1.0)
+        g_om_big_h_prev = jnp.where(
+            d > u,
+            -jnp.exp(
+                k * jnp.log(omega_c) + kappa_c * jnp.log1p(-omega_c)
+                - betaln(k, kappa_c)
+            ),
+            0.0,
+        )
     grad_omega_log_rho = jnp.where(
         d < u, 0.0, g_om_log_h + g_om_big_h_prev / denom
     )
@@ -193,14 +230,13 @@ def gather_rho(rho_table, d_prev, r_prev):
     """Look up rho for (sojourn d_prev, regime r_prev), clamping the sojourn
     to the table depth. Entry [r, d-1] holds sojourn d (singleGroup.h:124).
 
-    TPU note: XLA lowers per-element table gathers to a scalar loop — at the
-    backward pass's (N=2400,) index vectors the two rho lookups alone cost
-    ~285 us per scan step (the single largest cost of the whole two-group
-    workload). For large index vectors we instead gather CONTIGUOUS
-    128-element rows of the (R*ceil(W/128), 128)-reshaped table (vectorised
-    loads) and pick the lane with a one-hot multiply-reduce — exact (0/1
-    products in f32) and ~4x faster, independent of the table depth. Small
-    lookups (the filter's (M,)-sized ancestor indices) keep the plain path.
+    For large index vectors (the backward pass's (N=2400,) lookups) this
+    gathers CONTIGUOUS 128-element rows of the (R*ceil(W/128), 128)-reshaped
+    table and picks the entry with a one-hot multiply-reduce — exact (0/1
+    products in f32) and independent of the table depth. The layout was
+    chosen where per-element gathers lowered to a scalar loop; whether it
+    still pays on a GPU is not measured (ROADMAP). Small lookups (the
+    filter's (M,)-sized ancestor indices) keep the plain path.
     """
     W = rho_table.shape[1]
     d_idx = jnp.clip(d_prev - 1, 0, W - 1)

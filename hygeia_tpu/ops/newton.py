@@ -6,7 +6,7 @@ step leaves the current bracket or fails the sign test, shrinking the
 bracket every iteration. The reference keeps it around without any
 main-path call sites (VERDICT round 2 "missing" #1); provided for parity.
 
-TPU-native expression: a `lax.while_loop` with a fixed carry, jittable and
+Expressed as a `lax.while_loop` with a fixed carry, jittable and
 usable inside other jitted code. The callables `f` and `f1` must be
 JAX-traceable scalar functions.
 """

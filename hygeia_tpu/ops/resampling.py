@@ -50,14 +50,13 @@ _PREFIX_BLOCK = 128
 def _cumsum_fast(x):
     """(N,) inclusive prefix sum via blocked lower-triangular matmuls.
 
-    XLA's cumsum lowering serialises along the axis; on TPU a (2400,) prefix
-    per scan step was ~23 us. Blocked form: reshape to (nb, 128), multiply by
-    a 128x128 lower-triangular ones matrix on the MXU (HIGHEST precision —
-    f32-exact accumulation), then offset blocks by a tiny (nb,) cumsum.
-    Summation order differs from sequential cumsum only in grouping; the
-    realised-total rescaling used by every CDF consumer keeps the grids
-    consistent. Measured 2.3x faster resampling together with the
-    scatter-free masks (tools/bisect_resampling.py)."""
+    XLA's cumsum lowering serialises along the axis. Blocked form: reshape
+    to (nb, 128), multiply by a 128x128 lower-triangular ones matrix
+    (HIGHEST precision — f32 accumulation), then offset blocks by a tiny
+    (nb,) cumsum. Summation order differs from sequential cumsum only in
+    grouping; the realised-total rescaling used by every CDF consumer keeps
+    the grids consistent. Whether this beats jnp.cumsum on a GPU is not
+    measured (ROADMAP)."""
     n = x.shape[0]
     if n <= _PREFIX_BLOCK:
         return jnp.cumsum(x)
@@ -75,8 +74,8 @@ def _cumsum_fast(x):
 
 def _member_mask(n, idx):
     """Boolean (n,) mask marking the positions in `idx` — built from a
-    comparison table instead of a scatter (`.at[idx].set(True)` serialises on
-    TPU: ~27 us per mask per scan step at n=2400)."""
+    comparison table instead of a scatter (`.at[idx].set(True)` serialises
+    inside a scan step)."""
     hits = jnp.arange(n)[None, :] == idx[:, None]  # (len(idx), n)
     return jnp.any(hits, axis=0), hits
 
@@ -89,8 +88,7 @@ def _count_below(q, t, *, strict_side_left=True):
 
     Computed as a (len(t), len(q)) comparison + row-sum: pure VPU work that
     fuses into the surrounding step, instead of XLA's binary-search lowering
-    (a log2(N)-deep while loop of dynamic gathers per query — gathers
-    dominated the filter's per-step cost on TPU).
+    (a log2(N)-deep while loop of dynamic gathers per query).
     """
     if strict_side_left:
         cmp = q[None, :] < t[:, None]
@@ -112,7 +110,7 @@ def systematic_resampling(key, log_norm_weights, num_offspring):
     q = _cumsum_fast(jnp.exp(log_norm_weights))
     # Scale the grid by the realised total mass: with f32 rounding the cumsum
     # total can fall below 1, and an unscaled grid point past it would select
-    # a zero-weight (dead) slot — on TPU this produced -inf ancestors.
+    # a zero-weight (dead) slot, producing -inf ancestors.
     t = (jnp.arange(m, dtype=jnp.float32) + u) / m * q[-1]
     idx = _count_below(q, t)
     return jnp.clip(idx, 0, log_norm_weights.shape[0] - 1).astype(jnp.int32)
@@ -189,8 +187,7 @@ def optimal_finite_state_resampling(key, log_weights, num_offspring, *, normaliz
     candidate K values: K is the smallest k with c_k * q_k <= 1 where
     c_k = (M - k) / Q_k, q the sorted (desc) normalised weights and Q_k the
     suffix sum. Since K <= M by construction, only the top M+1 weights are
-    needed — `lax.top_k` instead of a full N-element sort (the full sort was
-    the dominant per-step cost of the filter on TPU), and the residual
+    needed — `lax.top_k` instead of a full N-element sort, and the residual
     systematic pass runs over the *unsorted* weights with the kept set
     masked out (ordering does not affect its unbiasedness). Equivalence with
     the iterative reference version is covered by tests/test_resampling.py.

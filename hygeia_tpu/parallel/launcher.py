@@ -1,20 +1,15 @@
-"""Multi-host launch helper.
+"""Multi-process launch helper.
 
 The reference scales out with AWS Batch + Nextflow file staging
-(aws.config, run.sh); the TPU-native equivalent is a SPMD multi-host JAX
-program: every host runs the same pipeline entry, `jax.distributed`
-connects the hosts, and the global (genome x seed) mesh spans all chips.
-Data stays sharded; only host 0 writes aggregate outputs.
+(aws.config, run.sh); here the equivalent is one SPMD JAX program across
+processes: every process runs the same pipeline entry, `jax.distributed`
+connects them, and the global (genome x seed) mesh spans all their devices.
+Only process 0 writes aggregate outputs.
 
-Usage on each host of a pod slice (or via your cluster runner):
-
-    from hygeia_tpu.parallel.launcher import initialize_distributed
-    initialize_distributed()          # no-op on single-host
-    mesh = make_mesh(...)             # spans all global devices
-
-On Cloud TPU the coordinator address/process count are discovered from the
-environment automatically; they can also be passed explicitly for other
-fabrics (e.g. a SLURM cluster with DCN between hosts).
+A multi-process run starts when the coordinator is named, either through
+the arguments or through ``JAX_COORDINATOR_ADDRESS`` (with
+``JAX_NUM_PROCESSES`` and ``JAX_PROCESS_ID``, which jax.distributed reads
+itself). Otherwise the call is a no-op and the run is a single process.
 """
 
 from __future__ import annotations
@@ -25,25 +20,20 @@ import os
 def initialize_distributed(
     coordinator_address=None, num_processes=None, process_id=None
 ):
-    """Initialise jax.distributed when running multi-host; returns the
-    (process_index, process_count) pair. Safe to call on a single host."""
+    """Initialise jax.distributed for a multi-process run; returns the
+    (process_index, process_count) pair. A failed start raises: a process
+    that cannot join its cluster must not run on alone."""
     import jax
 
-    explicit = coordinator_address is not None
-    env_hint = any(
-        os.environ.get(k)
-        for k in ("JAX_COORDINATOR_ADDRESS", "TPU_WORKER_HOSTNAMES", "MEGASCALE_COORDINATOR_ADDRESS")
-    )
-    if explicit or (env_hint and os.environ.get("HYGEIA_DISTRIBUTED", "1") == "1"):
-        try:
+    if coordinator_address is not None or os.environ.get(
+        "JAX_COORDINATOR_ADDRESS"
+    ):
+        if not jax.distributed.is_initialized():
             jax.distributed.initialize(
                 coordinator_address=coordinator_address,
                 num_processes=num_processes,
                 process_id=process_id,
             )
-        except (RuntimeError, ValueError):
-            # Already initialised, or single-host with TPU hints set.
-            pass
     return jax.process_index(), jax.process_count()
 
 

@@ -2,7 +2,7 @@
 
 The reference parallelises by fanning out (chromosome x segment x seed)
 Nextflow tasks over containers with file staging (SURVEY.md section 2.4).
-The TPU-native equivalent: a 2D ``jax.sharding.Mesh`` with axes
+The equivalent here: a 2D ``jax.sharding.Mesh`` with axes
 
   "genome" — genome blocks (the sequence-parallel axis; each block is one
              halo-buffered segment, the analog of an INFER task),

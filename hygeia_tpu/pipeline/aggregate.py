@@ -11,13 +11,8 @@ from __future__ import annotations
 import os
 
 import numpy as np
-import pandas as pd
 
-# gzip level 1: pandas' default level-9 gzip dominated the AGGREGATE stage
-# wall at chromosome scale (9 x ~400k-row int tables); decompressed content
-# is identical, so downstream consumers (incl. the reference's pd.read_table)
-# see the same files.
-_GZ1 = {"method": "gzip", "compresslevel": 1}
+from hygeia_tpu.utils import io as hio
 
 
 def aggregate_chromosome(
@@ -46,7 +41,7 @@ def aggregate_chromosome(
     os.makedirs(output_dir, exist_ok=True)
     N = num_particles
 
-    frames = {
+    tables = {
         k: []
         for k in (
             "positions",
@@ -59,7 +54,6 @@ def aggregate_chromosome(
             "n_tot_case",
             "obs_ctrl",
             "obs_case",
-            "split",
         )
     }
     processed = 0
@@ -85,9 +79,8 @@ def aggregate_chromosome(
             ]
             if not all(os.path.isfile(p) for p in archives):
                 continue
-        try:
-            positions = pd.read_table(pos_file, sep=",", header=None, dtype=np.int64)
-        except pd.errors.EmptyDataError:
+        positions = hio.read_positions(pos_file)
+        if positions.size == 0:
             # A zero-site batch: the reference's n_batches = 1 + n // S
             # convention (get_chrom_segments.py) creates an empty trailing
             # batch whenever the chromosome length is an exact multiple of
@@ -95,55 +88,37 @@ def aggregate_chromosome(
             # failure — skip it in both modes.
             continue
 
-        merged_seeds, ctrl_seeds, case_seeds = [], [], []
-        for seed in range(seeds):
-            m = np.load(
-                os.path.join(
-                    data_dir,
-                    f"optimal_backward_particles_merged_state_{N}_{seed}.npz",
-                )
-            )["arr_0"]
-            c = np.load(
-                os.path.join(
-                    data_dir,
-                    f"optimal_backward_particles_control_state_{N}_{seed}.npz",
-                )
-            )["arr_0"]
-            k = np.load(
-                os.path.join(
-                    data_dir,
-                    f"optimal_backward_particles_case_state_{N}_{seed}.npz",
-                )
-            )["arr_0"]
-            merged_seeds.append(m)
-            ctrl_seeds.append(c)
-            case_seeds.append(k)
-        # Seeds concatenate along the particle axis (aggregate_results.py:125-127).
-        merged = np.concatenate(merged_seeds, axis=-1)
-        ctrl = np.concatenate(ctrl_seeds, axis=1)
-        case = np.concatenate(case_seeds, axis=1)
+        def _archives(kind):
+            return [
+                np.load(
+                    os.path.join(
+                        data_dir,
+                        f"optimal_backward_particles_{kind}_state_{N}_{seed}.npz",
+                    )
+                )["arr_0"]
+                for seed in range(seeds)
+            ]
 
-        frames["positions"].append(positions)
-        frames["merged"].append(pd.DataFrame(merged).astype(np.int8))
+        # Seeds concatenate along the particle axis (aggregate_results.py:125-127).
+        merged = np.concatenate(_archives("merged"), axis=-1)
+        ctrl = np.concatenate(_archives("control"), axis=1)
+        case = np.concatenate(_archives("case"), axis=1)
+
+        tables["positions"].append(positions)
+        tables["merged"].append(merged.astype(np.int8))
         # State archives are (T, B, 2) = (duration, regime) pairs.
-        frames["ctrl_regime"].append(pd.DataFrame(ctrl[:, :, 1]).astype(np.int8))
-        frames["case_regime"].append(pd.DataFrame(case[:, :, 1]).astype(np.int8))
-        frames["ctrl_dur"].append(pd.DataFrame(ctrl[:, :, 0]).astype(np.int32))
-        frames["case_dur"].append(pd.DataFrame(case[:, :, 0]).astype(np.int32))
+        tables["ctrl_regime"].append(ctrl[:, :, 1].astype(np.int8))
+        tables["case_regime"].append(case[:, :, 1].astype(np.int8))
+        tables["ctrl_dur"].append(ctrl[:, :, 0].astype(np.int32))
+        tables["case_dur"].append(case[:, :, 0].astype(np.int32))
         for key, fname in (
             ("n_tot_ctrl", "n_total_reads_control.csv.gz"),
             ("n_tot_case", "n_total_reads_case.csv.gz"),
             ("obs_ctrl", "observations_control.csv.gz"),
             ("obs_case", "observations_case.csv.gz"),
         ):
-            from hygeia_tpu.utils import io as hio
-
-            frames[key].append(
-                pd.DataFrame(
-                    hio.read_count_matrix(
-                        os.path.join(data_dir, fname), np.int16
-                    )
-                )
+            tables[key].append(
+                hio.read_count_matrix(os.path.join(data_dir, fname), np.int16)
             )
         processed += 1
 
@@ -152,53 +127,53 @@ def aggregate_chromosome(
             f"no batch outputs found under {results_dir} for chrom {chrom}"
         )
 
-    pos = pd.concat(frames["positions"]).rename(columns={0: "pos"}).astype(np.int32)
-    index = pos["pos"]
-    index_np = index.to_numpy(np.int64)
+    index = np.concatenate(tables["positions"]).astype(np.int32)
 
-    def _write(df_list, name):
-        df = pd.concat(df_list)
-        df = df.set_index(index)
-        # Native writer: itoa + parallel gzip members, decompressed bytes
-        # identical to to_csv (tests/test_pipeline.py); pandas' CSV
-        # formatting path cost ~20 s over the nine production tables.
+    def _write(parts, name):
+        values = np.concatenate(parts)
+        # Native writer: itoa + parallel gzip members; the NumPy fallback
+        # writes the same text (tests/test_pipeline.py).
         from hygeia_tpu.native.loader import write_int_table_gz
 
-        header = "pos\t" + "\t".join(str(c) for c in df.columns)
+        header = ["pos"] + [str(c) for c in range(values.shape[1])]
+        path = os.path.join(output_dir, name)
         if not write_int_table_gz(
-            os.path.join(output_dir, name),
-            df.to_numpy(),
-            index=index_np,
-            header=header,
-            sep="\t",
+            path, values, index=index, header="\t".join(header), sep="\t",
             level=1,
         ):
-            df.to_csv(
-                os.path.join(output_dir, name), sep="\t", compression=_GZ1
-            )
-        return df
+            hio.write_csv(path, [index, *values.T], header=header, sep="\t")
+        return values
 
-    ctrl_regimes = _write(frames["ctrl_regime"], f"control_regimes_chrom_{chrom}.csv.gz")
-    case_regimes = _write(frames["case_regime"], f"case_regimes_chrom_{chrom}.csv.gz")
-    merged_states = _write(frames["merged"], f"merge_states_chrom_{chrom}.csv.gz")
-    split_probs = (merged_states == 0).mean(axis=1)
-    split_probs.to_csv(
+    ctrl_regimes = _write(tables["ctrl_regime"], f"control_regimes_chrom_{chrom}.csv.gz")
+    case_regimes = _write(tables["case_regime"], f"case_regimes_chrom_{chrom}.csv.gz")
+    merged_states = _write(tables["merged"], f"merge_states_chrom_{chrom}.csv.gz")
+    hio.write_csv(
         os.path.join(output_dir, f"split_probs_{chrom}.csv.gz"),
+        [index, (merged_states == 0).mean(axis=1)],
+        header=["pos", "0"],
         sep="\t",
-        compression=_GZ1,
     )
-    _write(frames["n_tot_ctrl"], f"n_total_reads_control_chrom_{chrom}.csv.gz")
-    _write(frames["n_tot_case"], f"n_total_reads_case_chrom_{chrom}.csv.gz")
-    _write(frames["obs_ctrl"], f"n_meth_reads_control_chrom_{chrom}.csv.gz")
-    _write(frames["obs_case"], f"n_meth_reads_case_chrom_{chrom}.csv.gz")
-    _write(frames["ctrl_dur"], f"control_durations_chrom_{chrom}.csv.gz")
-    _write(frames["case_dur"], f"case_durations_chrom_{chrom}.csv.gz")
+    _write(tables["n_tot_ctrl"], f"n_total_reads_control_chrom_{chrom}.csv.gz")
+    _write(tables["n_tot_case"], f"n_total_reads_case_chrom_{chrom}.csv.gz")
+    _write(tables["obs_ctrl"], f"n_meth_reads_control_chrom_{chrom}.csv.gz")
+    _write(tables["obs_case"], f"n_meth_reads_case_chrom_{chrom}.csv.gz")
+    _write(tables["ctrl_dur"], f"control_durations_chrom_{chrom}.csv.gz")
+    _write(tables["case_dur"], f"case_durations_chrom_{chrom}.csv.gz")
 
     if compute_freqs:
-        for df, name in (
+        for regimes, name in (
             (case_regimes, f"case_regimes_freq_{chrom}.csv"),
             (ctrl_regimes, f"control_regimes_freq_{chrom}.csv"),
         ):
-            freq = df.apply(lambda x: x.value_counts(normalize=True), axis=1)
-            freq.to_csv(os.path.join(output_dir, name), sep="\t")
+            # Per-site regime frequencies: one column per regime value seen
+            # anywhere, ascending; empty where a site never visits it.
+            values = np.unique(regimes)
+            freq = (regimes[:, :, None] == values).mean(axis=1)
+            freq[freq == 0] = np.nan
+            hio.write_csv(
+                os.path.join(output_dir, name),
+                [index, *freq.T],
+                header=["pos"] + [str(v) for v in values],
+                sep="\t",
+            )
     return processed

@@ -10,7 +10,8 @@ from __future__ import annotations
 import os
 
 import numpy as np
-import pandas as pd
+
+from hygeia_tpu.utils.io import require_pandas
 
 # Reference palette (make_bed_file:49); extended palettes cycle for R > 6.
 _REGIME_COLOURS = [
@@ -30,6 +31,7 @@ def make_bed(chrom, regimes_file, output_file, *, compress=False):
     matching the reference module's `bgzip` + `tabix -p bed` post-steps
     (modules/single_group/4_generate_single_group_bed_files.nf:24-30).
     Returns the BED dataframe."""
+    pd = require_pandas("BED export")
     regimes = pd.read_csv(regimes_file)
     regime_cols = [c for c in regimes.columns if c != "genomic_position"]
     probs = regimes[regime_cols].to_numpy(float)

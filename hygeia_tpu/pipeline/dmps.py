@@ -12,30 +12,27 @@ from __future__ import annotations
 import os
 
 import numpy as np
-import pandas as pd
 
 from hygeia_tpu.pipeline.multiple_testing import fdr_procedure, weighted_fdr_procedure
+from hygeia_tpu.utils import io as hio
 
 
-def _regime_freq_frame(regimes, rows, n_regimes, prefix):
+def _regime_freqs(regimes, rows, n_regimes):
     freqs = np.zeros((len(rows), n_regimes))
     for i, row in enumerate(regimes[rows]):
         freqs[i] = np.bincount(row, minlength=n_regimes) / row.shape[0]
-    return pd.DataFrame(
-        freqs, columns=[f"{prefix}_METEOR_{i + 1}" for i in range(n_regimes)]
-    )
+    return freqs
 
 
-def _read_regime_table(path):
-    """(T, B) int regimes from an aggregate table (header + pos index) via
-    the native loader (pandas' read of two ~400k x 51 tables was most of
-    the DMP stage wall); pandas fallback."""
+def _read_table(path):
+    """(T, 1 + cols) float64 aggregate table (header row dropped, pos index
+    in column 0) via the native loader, with a NumPy fallback."""
     from hygeia_tpu.native.loader import load_matrix
 
     m = load_matrix(path, skip_rows=1)
-    if m is not None:
-        return m[:, 1:].astype(np.int64)
-    return pd.read_csv(path, sep="\t").set_index("pos").to_numpy()
+    if m is None:
+        m = hio.read_headed_table(path, sep="\t")[1]
+    return m
 
 
 def call_dmps(
@@ -48,65 +45,53 @@ def call_dmps(
     test_regime_combinations=False,
 ):
     os.makedirs(output_dir, exist_ok=True)
-    ctrl = _read_regime_table(
+    ctrl = _read_table(
         os.path.join(results_dir, f"control_regimes_chrom_{chrom}.csv.gz")
-    )
-    case = _read_regime_table(
+    )[:, 1:].astype(np.int64)
+    case = _read_table(
         os.path.join(results_dir, f"case_regimes_chrom_{chrom}.csv.gz")
-    )
+    )[:, 1:].astype(np.int64)
     num_particles = ctrl.shape[-1]
     # Posterior probability of the null (same regime in both groups).
     null_stats = 1.0 - np.sum(ctrl != case, axis=1) / num_particles
 
-    split = pd.read_csv(
-        os.path.join(results_dir, f"split_probs_{chrom}.csv.gz"), sep="\t"
-    ).set_index("pos")
-    pos_index = pd.DataFrame(split.index)
-    # Mean of 1-, 2- and 3-lag position gaps (get_dmps.py:79-80).
-    gaps = (
-        pos_index.diff(1) + pos_index.diff(2) + pos_index.diff(3)
-    ) / 3.0
-    positions = pos_index.copy()
-    positions["chrom"] = chrom
-    pos_arr = positions.to_numpy()
-
+    pos = _read_table(
+        os.path.join(results_dir, f"split_probs_{chrom}.csv.gz")
+    )[:, 0].astype(np.int64)
+    # Mean of 1-, 2- and 3-lag position gaps (get_dmps.py:79-80); the first
+    # sites, which lack a lag, take the reference's 1e5 fill.
+    p = pos.astype(np.float64)
+    gaps = np.full(len(p), np.nan)
+    gaps[3:] = ((p[3:] - p[2:-1]) + (p[3:] - p[1:-2]) + (p[3:] - p[:-3])) / 3.0
     w_fp = np.ones(len(gaps))
-    w_fn = np.squeeze(1.0 / gaps.fillna(1e5).to_numpy(), -1)
+    w_fn = 1.0 / np.where(np.isnan(gaps), 1e5, gaps)
+    chrom_col = np.full(len(pos), str(chrom), object)
 
-    def _frame(rows, stats, fn_weights):
-        df = pd.DataFrame(
-            {
-                "chrom": pos_arr[rows, 1],
-                "position": pos_arr[rows, 0],
-                "null_stats": stats,
-            }
-        )
-        df["false_negative_weight"] = fn_weights
-        df = pd.concat(
-            [
-                df.reset_index(drop=True),
-                _regime_freq_frame(ctrl, rows, n_regimes, "Control"),
-                _regime_freq_frame(case, rows, n_regimes, "Case"),
-            ],
-            axis=1,
-        )
-        return df
+    meteor = [f"Control_METEOR_{i + 1}" for i in range(n_regimes)] + [
+        f"Case_METEOR_{i + 1}" for i in range(n_regimes)
+    ]
+
+    def _write(name, rows, stats, fn_weights, with_freqs=True,
+               float_format="%.4f"):
+        cols = [chrom_col[rows], pos[rows], stats,
+                np.broadcast_to(np.asarray(fn_weights, np.float64), (len(rows),))]
+        header = ["chrom", "position", "null_stats", "false_negative_weight"]
+        if with_freqs:
+            cols += [*_regime_freqs(ctrl, rows, n_regimes).T,
+                     *_regime_freqs(case, rows, n_regimes).T]
+            header += meteor
+        hio.write_csv(os.path.join(output_dir, name), cols, header=header,
+                      float_format=float_format)
 
     for thr in fdr_thresholds:
         _, _, cutoff = fdr_procedure(null_stats, thr)
-        selected = null_stats < cutoff
-        rows = np.flatnonzero(selected)
-        _frame(rows, null_stats[rows], 1.0).to_csv(
-            os.path.join(output_dir, f"dmp_{thr}.csv"), index=False, float_format="%.4f"
-        )
+        rows = np.flatnonzero(null_stats < cutoff)
+        _write(f"dmp_{thr}.csv", rows, null_stats[rows], 1.0)
 
         w_rows, _ = weighted_fdr_procedure(null_stats, thr, w_fp, w_fn)
         w_rows = np.sort(w_rows)
-        _frame(w_rows, null_stats[w_rows], w_fn[w_rows]).to_csv(
-            os.path.join(output_dir, f"weighted_dmp_{thr}.csv"),
-            index=False,
-            float_format="%.4f",
-        )
+        _write(f"weighted_dmp_{thr}.csv", w_rows, null_stats[w_rows],
+               w_fn[w_rows])
 
         if test_regime_combinations:
             for i in range(n_regimes):
@@ -116,26 +101,11 @@ def call_dmps(
                     stats_ij = 1.0 - np.sum((ctrl == i) & (case == j), axis=1) / num_particles
                     _, _, cut_ij = fdr_procedure(stats_ij, thr)
                     rows_ij = np.flatnonzero(stats_ij < cut_ij)
-                    pd.DataFrame(
-                        {
-                            "chrom": pos_arr[rows_ij, 1],
-                            "position": pos_arr[rows_ij, 0],
-                            "null_stats": stats_ij[rows_ij],
-                            "false_negative_weight": 1.0,
-                        }
-                    ).to_csv(
-                        os.path.join(output_dir, f"dmp_{i}_{j}_{thr}.csv"), index=False
-                    )
+                    _write(f"dmp_{i}_{j}_{thr}.csv", rows_ij,
+                           stats_ij[rows_ij], 1.0, with_freqs=False,
+                           float_format=None)
                     wr, _ = weighted_fdr_procedure(stats_ij, thr, w_fp, w_fn)
                     wr = np.sort(wr)
-                    pd.DataFrame(
-                        {
-                            "chrom": pos_arr[wr, 1],
-                            "position": pos_arr[wr, 0],
-                            "null_stats": stats_ij[wr],
-                            "false_negative_weight": w_fn[wr],
-                        }
-                    ).to_csv(
-                        os.path.join(output_dir, f"weighted_dmp_{i}_{j}_{thr}.csv"),
-                        index=False,
-                    )
+                    _write(f"weighted_dmp_{i}_{j}_{thr}.csv", wr,
+                           stats_ij[wr], w_fn[wr], with_freqs=False,
+                           float_format=None)

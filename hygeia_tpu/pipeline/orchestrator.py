@@ -129,6 +129,13 @@ class StageTrace:
         )
 
 
+def _log_prewarm_failure(err):
+    """A failed prewarm job only forfeits its overlap, but is never silent."""
+    import sys
+
+    print(f"prewarm job failed: {err!r}", file=sys.stderr, flush=True)
+
+
 class StageFailed(RuntimeError):
     """A pipeline stage failed after exhausting its retries and the error
     strategy was `terminate` (the commented-out alternative in
@@ -273,7 +280,7 @@ def run_two_group(
     mesh_shape=(n_genome, n_seed): run the INFER stage on a device mesh —
     all (batch x seed) work units of a chromosome in ONE pjit'd program
     (parallel/sharded.py) instead of the sequential per-batch loop. This is
-    the TPU-native form of the reference's Nextflow task fan-out
+    the device-mesh form of the reference's Nextflow task fan-out
     (main.nf:44-75). `boundary` selects halo (reference-like buffered
     windows) or exchange (exact ppermute boundary messages). Downstream
     stages (AGGREGATE_RESULTS, GET_DMPS) are untouched: the meshed INFER
@@ -304,17 +311,17 @@ def run_two_group(
 
     # ---- 2 (batched pre-pass): when counts for every chromosome exist up
     # front (preprocessed_dir mode), run the theta stage for ALL pending
-    # chromosomes in ONE vmapped device program — one sequential chain
-    # leaves ~87% of the chip idle (tools/bisect_engine), and the engine's
+    # chromosomes in ONE vmapped device program — one sequential chain is
+    # latency-bound and vmapped chains share each scan step, and the engine's
     # t_limit masking makes ragged batching bit-identical per chromosome.
     # On failure the markers stay unset and the per-chromosome path below
     # handles each individually (retry/ignore semantics unchanged).
     # Prewarm the pipeline's device-program set in the background from the
-    # very start: a fresh process otherwise pays the per-program compile-
-    # cache fetches (~20 s EACH on this backend, even on hits) SERIALLY
-    # in front of each stage's first dispatch. Theta-stage jobs are
-    # submitted first (needed first); all fetches parallelise on one pool
-    # (best-effort — any failure only forfeits the overlap).
+    # very start: a fresh process otherwise pays each program's compile (or
+    # compile-cache read) SERIALLY in front of each stage's first dispatch.
+    # Theta-stage jobs are submitted first (needed first); all compiles
+    # parallelise on one pool (best-effort — a failed job only forfeits the
+    # overlap, and is logged to stderr).
     if preprocessed_dir is not None and not stub_run:
         import threading
 
@@ -377,10 +384,10 @@ def run_two_group(
                     for f in [pool.submit(j) for j in jobs]:
                         try:
                             f.result()
-                        except Exception:  # noqa: BLE001
-                            pass
-            except Exception:  # noqa: BLE001 — priming is best-effort
-                pass
+                        except Exception as e:  # noqa: BLE001
+                            _log_prewarm_failure(e)
+            except Exception as e:  # noqa: BLE001 — priming is best-effort
+                _log_prewarm_failure(e)
 
         threading.Thread(target=_prewarm, daemon=True).start()
 
@@ -483,10 +490,11 @@ def run_two_group(
         positions = hio.read_positions(pre_dir / f"positions_{chrom}.txt.gz")
         n_batches = 1 + len(positions) // segment_size
         if _stage(seg_dir, resume):
-            from hygeia_tpu.pipeline.segments import chrom_segments
+            from hygeia_tpu.pipeline.segments import write_segments_csv
 
-            chrom_segments(len(positions), str(chrom), segment_size).to_csv(
-                seg_dir / f"chrom_segments_{chrom}.csv", index=False
+            write_segments_csv(
+                seg_dir / f"chrom_segments_{chrom}.csv", len(positions),
+                chrom, segment_size,
             )
             _finish(seg_dir)
 
@@ -536,9 +544,9 @@ def run_two_group(
         if mesh_shape is None and stream_batched and streaming_blocks:
             # Cross-segment batched streamed INFER: the chromosome's whole
             # (batch x seed) unit grid rides one sequence of streamed
-            # dispatches (runner.infer_chromosome_streamed) — the single-chip
-            # counterpart of the meshed path (residency is throughput,
-            # PERF.md). One marker/retry scope per chromosome; retries halve
+            # dispatches (runner.infer_chromosome_streamed) — the
+            # single-device counterpart of the meshed path (residency is
+            # throughput). One marker/retry scope per chromosome; retries halve
             # the per-dispatch unit cap like the sequential path's seed cap.
             from hygeia_tpu.two_group.runner import infer_chromosome_streamed
 
@@ -606,7 +614,7 @@ def run_two_group(
                     streaming_blocks=streaming_blocks,
                     # Escalate like task.attempt resources (4_infer.nf:10):
                     # halve the per-dispatch seed chunk on each retry so an
-                    # HBM OOM on the full vmapped seed batch backs off.
+                    # device OOM on the full vmapped seed batch backs off.
                     max_seeds_per_call=max(1, len(inference_seeds) >> (attempt - 1)),
                 )
                 _finish(unit)
@@ -776,10 +784,9 @@ def _single_group_on_counts(
     and write the reference-named outputs (theta_{chrom}.csv.gz etc.)."""
     import jax
     import jax.numpy as jnp
-    import pandas as pd
 
     from hygeia_tpu.ops.emissions import emission_log_prob_table
-    from hygeia_tpu.single_group.model import make_model, theta_to_parameters
+    from hygeia_tpu.single_group.model import make_model
     from hygeia_tpu.single_group.engine import (
         EngineConfig,
         run_online_combined_inference,
@@ -826,8 +833,8 @@ def _single_group_on_counts(
         theta_block_threshold = _tc.THETA_BLOCK_THRESHOLD
     T = E.shape[0]
     if theta_block_size and T >= theta_block_threshold:
-        # Within-chromosome blocked path: one sequential chain leaves ~87%
-        # of the chip idle at this shape; halo-buffered blocks of THIS
+        # Within-chromosome blocked path: one sequential chain is
+        # latency-bound at this shape; halo-buffered blocks of THIS
         # chromosome run vmapped after a sequential theta warmup
         # (single_group/blocked.py; parity: tests/test_blocked_engine.py).
         from hygeia_tpu.single_group.blocked import (
@@ -846,9 +853,8 @@ def _single_group_on_counts(
     else:
         # Program cached at module level with the table/model arrays as jit
         # ARGUMENTS: a fresh `jax.jit(lambda ...)` per stage call re-traced
-        # and re-queried the remote compile cache every chromosome (CLAUDE.md
-        # rule 6b) and baked the (T, R) emission table in as a multi-MB
-        # program constant (rule 6d).
+        # and re-compiled every chromosome and baked the (T, R) emission
+        # table in as a multi-MB program constant.
         prog = _sg_engine_program(
             model.n_regimes, model.u, model.kappa_fixed, model.d_max, cfg
         )
@@ -871,49 +877,30 @@ def _single_group_on_counts(
 def _write_sg_outputs(sg_dir, chrom, positions, probs, trace, R, kappa):
     """Reference-named single-group stage outputs (theta_{chrom}.csv.gz etc.)
     — shared by the per-chromosome and the batched stage paths."""
-    import pandas as pd
-
     from hygeia_tpu.single_group.model import theta_to_parameters
     from hygeia_tpu.utils import io as hio
 
     sg_dir = Path(sg_dir)
-    # Level-1 gzip + the native float writer: the theta trace is
-    # (T, dim_theta) floats and pandas' float formatting alone cost ~10 s
-    # over these two files at chromosome scale (%.9g round-trips the f32
-    # values exactly; text may differ from pandas' shortest repr —
-    # PARITY.md). pandas fallback when the library is unavailable.
-    from hygeia_tpu.native.loader import write_float_table_gz
-
-    gz1 = {"method": "gzip", "compresslevel": 1}
+    # The theta trace is (T, dim_theta) floats: the %.9g table writer
+    # round-trips the f32 values exactly (text may differ from pandas'
+    # shortest repr — PARITY.md).
     if probs is not None:
         cols = [f"regime_{i + 1}" for i in range(R)]
-        pos = np.asarray(positions[: len(probs)])
-        if not write_float_table_gz(
+        hio.write_float_table(
             sg_dir / f"regime_probabilities_{chrom}.csv.gz",
             probs,
-            index=pos,
+            index=np.asarray(positions[: len(probs)]),
             header="genomic_position," + ",".join(cols),
-        ):
-            df = pd.DataFrame(probs, columns=cols)
-            df.insert(0, "genomic_position", pos)
-            df.to_csv(
-                sg_dir / f"regime_probabilities_{chrom}.csv.gz", index=False,
-                compression=gz1,
-            )
-
-    theta_cols = [f"theta_{i + 1}" for i in range(trace.shape[1])]
-    if not write_float_table_gz(
+        )
+    hio.write_float_table(
         sg_dir / f"theta_trace_{chrom}.csv.gz",
         trace,
-        header=",".join(theta_cols),
-    ):
-        pd.DataFrame(trace, columns=theta_cols).to_csv(
-            sg_dir / f"theta_trace_{chrom}.csv.gz", index=False,
-            compression=gz1,
-        )
+        header=",".join(f"theta_{i + 1}" for i in range(trace.shape[1])),
+    )
     final = theta_to_parameters(trace[-1], R)
-    pd.DataFrame(final["p"], columns=[f"regime_{i + 1}" for i in range(R)]).to_csv(
-        sg_dir / f"p_{chrom}.csv.gz", index=False
+    hio.write_csv(
+        sg_dir / f"p_{chrom}.csv.gz", list(np.asarray(final["p"]).T),
+        header=[f"regime_{i + 1}" for i in range(R)],
     )
     hio.write_headed_column(sg_dir / f"omega_{chrom}.csv.gz", final["omega"], "omega")
     hio.write_headed_column(sg_dir / f"kappa_{chrom}.csv.gz", kappa, "kappa")
@@ -944,10 +931,9 @@ def _single_group_on_counts_batched(
     tests: test_t_limit_masking_matches_unbatched_run,
     test_batched_single_group_stage_matches_per_chromosome).
 
-    Why: one sequential theta chain leaves ~87% of the chip idle
-    (tools/bisect_engine: 8 vmapped units cost 2.3x ONE unit for 8x the
-    work) and the stage is the pipeline's second-largest warm cost. The
-    reference has no analog — its module 2 is one container per chromosome
+    Why: one sequential theta chain is latency-bound, and vmapped chains
+    share each scan step. The reference has no analog — its module 2 is one
+    container per chromosome
     (modules/two_group/2_estimate_parameters_and_regimes.nf).
     """
     import jax
@@ -1187,7 +1173,7 @@ def run_single_group(
 
     # Batched pre-passes over the whole (sample x chrom) grid: the theta
     # chains are sequential and latency-bound, so one vmapped ragged program
-    # per pass fills the chip (see the two-group batched stage; engine
+    # per pass fills the device (see the two-group batched stage; engine
     # t_limit masking keeps per-unit outputs identical). Failures leave
     # markers unset and fall through to the per-unit path below.
     sg_kw = dict(

@@ -21,7 +21,8 @@ import os
 from pathlib import Path
 
 import numpy as np
-import pandas as pd
+
+from hygeia_tpu.utils.io import require_pandas
 
 _BED_COLUMNS = [
     "chr",
@@ -41,8 +42,9 @@ _BED_COLUMNS = [
 ]
 
 
-def collapse_strands(bed: pd.DataFrame) -> pd.DataFrame:
+def collapse_strands(bed):
     """Merge +/- strand records of each CpG into one site."""
+    pd = require_pandas("BED preprocessing")
     pos = bed[bed["strand"] == "+"]
     neg = bed[bed["strand"] == "-"]
     merged = pd.merge(
@@ -86,6 +88,7 @@ def _round_half_away(x):
 
 def read_bed_sample(path, chromosome):
     """Read one BED methylation file -> collapsed per-CpG counts frame."""
+    pd = require_pandas("BED preprocessing")
     bed = pd.read_csv(
         path,
         sep="\t",
@@ -124,6 +127,7 @@ def process_bed(
     case_id_names=(),
 ):
     """Run the full preprocessing; returns the number of CpG sites written."""
+    pd = require_pandas("BED preprocessing")
     output_path = Path(output_path)
     output_path.mkdir(parents=True, exist_ok=True)
 

@@ -26,7 +26,8 @@ import logging
 from pathlib import Path
 
 import numpy as np
-import pandas as pd
+
+from hygeia_tpu.utils.io import require_pandas
 
 logger = logging.getLogger(__name__)
 
@@ -34,6 +35,7 @@ logger = logging.getLogger(__name__)
 def read_gembs_sample(path, chromosome, sample_id):
     """Return the (Pos0, non_conv, conv) slice for one sample, or None when
     the reference would fall back to all-NaN column slots (:156-172)."""
+    pd = require_pandas("gemBS preprocessing")
     comp = "gzip" if str(path).endswith(".gz") else None
     df = pd.read_csv(path, sep="\t", compression=comp)
     df = df[(df["Contig"] == f"chr{chromosome}") & (df["Ref"] == "CG")]
@@ -55,6 +57,7 @@ def process_gembs(
     case_data_paths=(),
     case_id_names=(),
 ):
+    pd = require_pandas("gemBS preprocessing")
     output_path = Path(output_path)
     output_path.mkdir(parents=True, exist_ok=True)
 

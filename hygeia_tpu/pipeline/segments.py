@@ -7,23 +7,24 @@ multiple; downstream batch tasks with an out-of-range index exit cleanly)."""
 
 from __future__ import annotations
 
-import os
+import numpy as np
 
-import pandas as pd
-
-
-def chrom_segments(n_positions: int, chromosome: str, segment_size: int) -> pd.DataFrame:
-    num_segments = 1 + n_positions // segment_size
-    return pd.DataFrame(
-        {"chrom": [chromosome] * num_segments, "segment_index": range(num_segments)}
-    )
+from hygeia_tpu.utils import io as hio
 
 
 def write_chrom_segments(input_file, chromosome, segment_size, output_csv):
-    positions = pd.read_csv(input_file, header=None, names=["position"], compression="gzip")
-    df = chrom_segments(len(positions), chromosome, segment_size)
-    out_dir = os.path.dirname(output_csv)
-    if out_dir:
-        os.makedirs(out_dir, exist_ok=True)
-    df.to_csv(output_csv, index=False)
-    return df
+    """Write the (chrom, segment_index) table for the chromosome whose
+    positions file is ``input_file``; returns the number of segments."""
+    return write_segments_csv(
+        output_csv, len(hio.read_positions(input_file)), chromosome, segment_size
+    )
+
+
+def write_segments_csv(output_csv, n_positions, chromosome, segment_size):
+    num_segments = 1 + n_positions // segment_size
+    hio.write_csv(
+        output_csv,
+        [np.full(num_segments, str(chromosome), object), np.arange(num_segments)],
+        header=["chrom", "segment_index"],
+    )
+    return num_segments

@@ -114,29 +114,25 @@ def estimate_parameters_and_regimes(
     res = run(jax.random.PRNGKey(rng_seed), E)
 
     if estimate_regime_probabilities and regime_probabilities_csv_file:
-        import pandas as pd
-
         probs = np.asarray(res.regime_probs)
-        df = pd.DataFrame(
-            probs, columns=[f"regime_{i + 1}" for i in range(R)]
+        hio.write_csv(
+            regime_probabilities_csv_file,
+            [positions[:T], *probs.T],
+            header=["genomic_position"] + [f"regime_{i + 1}" for i in range(R)],
         )
-        df.insert(0, "genomic_position", positions[:T])
-        hio._ensure_dir(regime_probabilities_csv_file)
-        df.to_csv(regime_probabilities_csv_file, index=False)
 
     if estimate_parameters:
-        import pandas as pd
-
         trace = np.asarray(res.theta_trace)
         if theta_trace_csv_file:
-            hio._ensure_dir(theta_trace_csv_file)
-            pd.DataFrame(
-                trace, columns=[f"theta_{i + 1}" for i in range(trace.shape[1])]
-            ).to_csv(theta_trace_csv_file, index=False)
+            hio.write_csv(
+                theta_trace_csv_file, list(trace.T),
+                header=[f"theta_{i + 1}" for i in range(trace.shape[1])],
+            )
         final = theta_to_parameters(trace[-1], R, kappa_fixed=is_kappa_fixed)
-        pd.DataFrame(
-            final["p"], columns=[f"regime_{i + 1}" for i in range(R)]
-        ).to_csv(_ensure(p_csv_file), index=False)
+        hio.write_csv(
+            _ensure(p_csv_file), list(np.asarray(final["p"]).T),
+            header=[f"regime_{i + 1}" for i in range(R)],
+        )
         hio.write_headed_column(omega_csv_file, final["omega"], "omega")
         hio.write_headed_column(
             kappa_csv_file, final.get("kappa", kappa), "kappa"

@@ -22,22 +22,20 @@ from hygeia_tpu.two_group.model import State, TwoGroupParams
 _NEG_INF = -jnp.inf
 
 
-# NOTE on hazard lookups: round 1 precomputed a (T, N) "_hazard_history" for
-# the whole particle history and threaded it through the scan. MEASURED ON
-# CHIP (tools/bisect_backward.py, T=4096 x 8 units): per-step gather_rho at
-# (1, N) inside the scan body is 15% FASTER (0.55 s vs 0.64 s) — the hoisted
-# tables add two (T, N) f32 scan inputs whose per-step slicing costs more
-# than the row-gather they save — and the hoist's 2 x T x N x 4 B footprint
-# (2.1 GB at the production 110k-site segment) pushed the backward pass over
-# the 16 GB HBM of a v5e chip. Hazards are therefore computed per step.
+# NOTE on hazard lookups: an earlier revision precomputed a (T, N)
+# "_hazard_history" for the whole particle history and threaded it through
+# the scan. The hoisted tables add two (T, N) f32 scan inputs whose
+# per-step slicing cost more than the row-gather they save, and the hoist's
+# 2 x T x N x 4 B footprint is 2.1 GB at the production 110k-site segment.
+# Hazards are therefore computed per step.
 
 
 def _structured_rho(params: TwoGroupParams, cur: State):
     """Hazard lookups for a HISTORY-LAYOUT particle set without (N,) gathers.
 
-    MEASURED ON CHIP (tools/bisect_backward3.py, T=4096 x 8 units): the two
-    (N=2400,) gather_rho calls cost 81 us of the 128 us backward scan step —
-    63% of the whole backward pass. But filter history rows have (I, M)
+    The two (N=2400,) gather_rho calls were most of the backward scan step
+    where this was first built (not yet measured on a GPU). Filter history
+    rows have (I, M)
     child structure (proposal.expand_states): every child with duration > 1
     carries its ancestor's (regime, duration+1) pair, which the no-change
     row (child slot 0) holds verbatim — so the (N,) lookups collapse to
@@ -105,13 +103,12 @@ def _backward_logits(
     Semantically identical to
         transition_log_prob(params, cur[None, :], nxt[:, None]) + mask
     (covered by tests/test_two_group_filter.py::test_backward_logits_
-    matches_transition) but restructured for the TPU: the generic density
-    broadcasts every intermediate of its ~50-op branch tree to (B, N), which
-    made the transition evaluation 67% of backward-pass time
-    (tools/bisect_backward2.py). Here every prev-only factor (hazards, merged
-    rows, duration gate) is computed once at (N,), every next-only factor at
-    (B,), the control transition row lookup is one exact one-hot matmul
-    sandwich (N,R)@(R,R)@(R,B) on the MXU, and only ~25 ops touch (B, N).
+    matches_transition) but restructured: the generic density broadcasts
+    every intermediate of its ~50-op branch tree to (B, N). Here every
+    prev-only factor (hazards, merged rows, duration gate) is computed once
+    at (N,), every next-only factor at (B,), the control transition row
+    lookup is one exact one-hot matmul sandwich (N,R)@(R,R)@(R,B), and only
+    ~25 ops touch (B, N).
 
     Branch structure mirrors case_control_regime_model.py:80-87 and
     case_control_distributions.py:138-151, 246-291 — see
@@ -124,8 +121,8 @@ def _backward_logits(
     added to every row here, so -inf ancestors can never be sampled); the
     kernel is NOT drop-in equivalent to transition_log_prob on padded states.
 
-    history_layout=True replaces the two (N,) hazard gathers (81 us/step,
-    63% of the backward pass) with the structural lookup (_structured_rho) —
+    history_layout=True replaces the two (N,) hazard gathers with the
+    structural lookup (_structured_rho) —
     valid only when ``cur`` is a filter-history row in (I, M) child layout.
     """
     R = params.n_regimes
@@ -151,7 +148,8 @@ def _backward_logits(
     to1 = jnp.where(cur.m == 0, lpm[0, 1], lpm[1, 1])
 
     # Control transition row values log_p[cur.r_c, nxt.r_c] as (N, B): an
-    # exact one-hot sandwich (0/1 operands; HIGHEST keeps f32 on the MXU).
+    # exact one-hot sandwich (0/1 operands; HIGHEST keeps the products in
+    # f32, never TF32/bf16).
     regs = jnp.arange(R)
     safe = jnp.where(jnp.isfinite(params.log_p_control), params.log_p_control, -1e30)
     oh_prev = (cur.r_c[:, None] == regs).astype(f32)  # (N, R)
@@ -223,15 +221,13 @@ def _backward_logits(
 def _categorical_rows(key, logits):
     """One categorical draw per row of (B, N) logits.
 
-    MEASURED ON CHIP (tools/bisect_backward.py, T=4096 x 8 units, B=25,
-    N=2400): jax.random.categorical's Gumbel argmax runs the whole backward
-    scan in 0.64 s where an inverse-CDF comparison-count (cumsum + count)
-    took 1.8 s — the (B, N) cumsum serialises along the 2400-wide particle
-    axis while Gumbel+max reduces in parallel; threefry bits at (B, N) per
-    step are NOT the bottleneck at this shape. (The inverse-CDF trick DOES
-    win for resampling-style draws of M values from one weight row — see
-    ops/resampling._count_below — where the cumsum is reused across draws.
-    This was the round-1 13.5k-vs-24.8k sites/s regression: VERDICT item 1.)
+    jax.random.categorical's Gumbel argmax reduces the (B, N) logits in
+    parallel, where an inverse-CDF comparison-count (cumsum + count)
+    serialises its cumsum along the 2400-wide particle axis; the Gumbel form
+    was about 3x faster where this was first built (not yet measured on a
+    GPU). (The inverse-CDF trick suits resampling-style draws of M values
+    from one weight row — see ops/resampling._count_below — where the
+    cumsum is reused across draws.)
     """
     return jax.random.categorical(key, logits, axis=-1)
 
@@ -255,8 +251,8 @@ def backward_simulation(
     # The scan consumes the FULL (T, N) history as xs with a terminal-step
     # mask rather than slicing off the last row: `log_weights[:T-1]` and the
     # five particle-field head slices each materialise a copy inside the jit
-    # — ~6.3 GB extra at the production 110k-site segment, which pushed the
-    # backward dispatch over a v5e's HBM even with the history donated.
+    # — ~6.3 GB extra at the production 110k-site segment, even with the
+    # history donated.
     # Masking wastes one step's kernel evaluation out of T instead.
     def step(carry, inputs):
         nxt = carry  # State of (B,) — particle at time t+1

@@ -1,6 +1,6 @@
 """Deterministic-proposal particle filter for the two-group model.
 
-TPU-native re-design of filter_and_smoother_algorithm.py: the genome loop is
+Re-design of filter_and_smoother_algorithm.py for XLA: the genome loop is
 one ``lax.scan`` (static shapes; dead particle slots carry -inf weights), the
 per-ancestor proposal while-loop is a vectorised (I, M) expansion, and the
 observation density is a table gather. Weight algebra, resampling branches
@@ -50,9 +50,8 @@ def _narrow(state: State) -> State:
     """History storage dtypes: durations keep int32 (sojourns reach the
     segment length, 110k in production — int16 overflows), but the merged
     flag and the two regimes fit int8. 24 -> 15 bytes per particle-site cuts
-    the (T, N) filter history from 6.3 GB to 4.0 GB per production segment —
-    the margin that lets the backward dispatch fit in a v5e's 16 GB HBM even
-    when XLA cannot reuse the donated input buffers."""
+    the (T, N) filter history from 6.3 GB to 4.0 GB per production segment,
+    which matters most when XLA cannot reuse the donated input buffers."""
     return State(
         m=state.m.astype(jnp.int8),
         d_c=state.d_c,
@@ -66,8 +65,8 @@ class FilterResult(NamedTuple):
     log_weights: jnp.ndarray  # (T, N) per-step-normalised log weights
     particles: State  # pytree of five (T, N) arrays (int32 durations, int8
     # merged flag/regimes — see _narrow). Kept as separate per-field arrays:
-    # any stacked layout puts a length-5 axis into the TPU
-    # (8, 128) tile and pads it 25x in HBM (40 GB for an 8-unit bench).
+    # a stacked layout puts a length-5 axis last, which tiled layouts
+    # pad (model.State.stack).
     log_normalizing_constant: jnp.ndarray  # scalar: sum of per-step shifts
     degenerate_steps: jnp.ndarray  # scalar int: steps where every particle
     # weight was non-finite and the filter reset to uniform (diagnostic; 0 in
@@ -90,7 +89,6 @@ def run_filter(
     unroll: int = 8,
     vma_axes=(),
     return_history: bool = True,
-    pallas_resample: bool = False,
 ) -> FilterResult:
     """Run the filter over T sites; returns full weight/particle history.
 
@@ -100,11 +98,10 @@ def run_filter(
     hold only the FINAL site's (N,) state. O(N) memory — the forward
     checkpoint sweep of the streaming backward (two_group/streaming.py).
 
-    ``unroll`` sites are processed per lax.scan step: measured on chip, the
-    scan-step machinery (carry threading, ys update-slices, input slicing)
-    costs ~90 us/step regardless of particle count — ~60% of step time at
-    the production M=50 — so amortising it over 8 sites is a ~2x filter
-    speedup. Per-site RNG keys are derived with fold_in(key, t), so results
+    ``unroll`` sites are processed per lax.scan step, amortising the
+    scan-step machinery (carry threading, ys update-slices, input slicing),
+    whose cost does not depend on the particle count. The best factor on a
+    GPU is not measured. Per-site RNG keys are derived with fold_in(key, t), so results
     are BIT-IDENTICAL for any unroll factor (covered by
     test_filter_unroll_invariance); trailing sites that don't fill the last
     chunk are computed masked and trimmed.
@@ -115,7 +112,7 @@ def run_filter(
     ulp and relative weights would be destroyed. We instead renormalise the
     carried weights every step (this changes no algorithmic quantity: all
     uses are shift-invariant) and accumulate the shifts into the
-    log-normalising constant, making float32 safe on TPU. Pass float64 on
+    log-normalising constant, making float32 safe. Pass float64 on
     CPU for parity testing.
 
     Warm start (exact boundary exchange across genome blocks): pass
@@ -164,7 +161,6 @@ def run_filter(
             M,
             optimal_resampling,
             multinomial_resampling,
-            pallas_resample=pallas_resample,
         )
         warm_lw = jnp.where(jnp.isnan(warm_lw), _NEG_INF, warm_lw)
         warm_shift = logsumexp(warm_lw)
@@ -190,7 +186,6 @@ def run_filter(
             M,
             optimal_resampling,
             multinomial_resampling,
-            pallas_resample=pallas_resample,
         )
         # Sanitise: any NaN weight becomes -inf (dead), and if the whole set
         # died (shift non-finite) reset to uniform so the filter can recover
@@ -212,8 +207,8 @@ def run_filter(
     # With front_pad == 1 (whenever T % K == 0, true for the production
     # shapes) the ys are exactly the (T, N) history: NO trailing-slice copy
     # and NO init-row concatenate. Those two copies each duplicated the
-    # ~4 GB history of a 110k-site segment and were the filter's peak-HBM
-    # driver. front_pad > 1 falls back to one slice (copy).
+    # ~4 GB history of a 110k-site segment and set the filter's peak
+    # device memory. front_pad > 1 falls back to one slice (copy).
     K = max(1, int(unroll))
     n_steps = T - 1
     n_chunks = max(1, -(-T // K))
@@ -395,7 +390,6 @@ def _one_step(
     optimal_resampling,
     multinomial_resampling,
     with_parents=False,
-    pallas_resample=False,
 ):
     """One filter step; static shapes throughout.
 
@@ -423,17 +417,7 @@ def _one_step(
 
     # --- resample M ancestors (resample block, :201-219) -------------------
     need_resample = n_finite > M
-    if optimal_resampling and pallas_resample:
-        # Opt-in fused Pallas resampler (ops/pallas_resampling): same key
-        # discipline, realisations can differ at f32 rounding boundaries.
-        from hygeia_tpu.ops.pallas_resampling import (
-            optimal_finite_state_resampling_pallas,
-        )
-
-        res = optimal_finite_state_resampling_pallas(
-            key, log_norm.astype(jnp.float32), M
-        )
-    elif optimal_resampling:
+    if optimal_resampling:
         res = optimal_finite_state_resampling(
             key, log_norm.astype(jnp.float32), M, normalized=True
         )
@@ -459,7 +443,7 @@ def _one_step(
     # child-slot layout collapses the generic (I, M) branch tree to per-
     # region closed forms — bit-identical to expand_states +
     # paired_transition_log_prob + the one-hot emission selects
-    # (equivalence tested), measured faster on chip (PERF.md round 3).
+    # (equivalence tested).
     children, trans_lp, obs_lp = expand_score_and_observe(
         params, anc, emission_control[t], emission_case[t]
     )

@@ -17,8 +17,8 @@ Test functions (run_inference_two_groups.py:233-240): F = 1 + 2R columns —
 split indicator, R control-regime indicators, R case-regime indicators.
 
 The psi recursion is one (S*F, N) x (N, N) matmul per site — unlike the rest
-of the pipeline this path is MXU-bound, and it is the memory-safe choice for
-very long unsegmented scans.
+of the pipeline this path is matmul-heavy, and it is the memory-safe choice
+for very long unsegmented scans.
 """
 
 from __future__ import annotations
@@ -34,6 +34,11 @@ from hygeia_tpu.two_group.model import State, TwoGroupParams
 from hygeia_tpu.two_group.backward import _backward_logits
 from hygeia_tpu.two_group.filter import _first_step, _one_step
 from hygeia_tpu.two_group.proposal import num_children
+
+# Every f32 contraction names its precision: on a GPU the default runs f32
+# matmuls in TF32 (10-bit mantissa); the one-hot lookups must stay exact and
+# the psi/phi recursions compound rounding over every site.
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 _NEG_INF = -jnp.inf
 
@@ -79,7 +84,6 @@ def num_compact_columns(R, M):
 
 def _structured_psi_update(
     params: TwoGroupParams, prev: State, lw_prev, anc: State, psi,
-    matmul_dtype=None,
 ):
     """psi @ B_norm^T over the FULL (N,) column layout.
 
@@ -100,14 +104,14 @@ def _structured_psi_update(
     tail = jnp.einsum(
         "sfkm,km->sfk",
         psi[..., C0:].reshape(psi.shape[:-1] + (R * R, M)),
-        wt,
+        wt, precision=_HIGHEST,
     )
     tail = jnp.where(
         wsum > 0.0, tail / jnp.where(wsum > 0.0, wsum, 1.0), 0.0
     )
     psi_c = jnp.concatenate([psi[..., :C0], tail], axis=-1)
     out_c = _structured_psi_update_compact(
-        params, prev, w, anc, psi_c, matmul_dtype=matmul_dtype
+        params, prev, w, anc, psi_c
     )
     head = out_c[..., :C0]
     ind = jnp.broadcast_to(
@@ -118,14 +122,12 @@ def _structured_psi_update(
 
 def _structured_psi_update_compact(
     params: TwoGroupParams, prev: State, w_full, anc: State, psi_c,
-    matmul_dtype=None,
 ):
     """psi_c @ B_norm^T without materialising the (N, N) backward kernel —
     psi carried over the C = 2R*M + R*R COMPACT column layout.
 
     The generic path evaluates the ~50-op transition branch tree on the full
-    (N_new, N_prev) = 5.76M-entry grid every site — 112 of 198 us/step, the
-    marginal filter's dominant cost (PERF.md marginal cost model). But the
+    (N_new, N_prev) = 5.76M-entry grid every site. But the
     new particle set has (I, M) child structure (proposal.expand_states), so
     every child ROW of B factorises into per-prev-j scalars x small equality
     masks keyed on the child's ANCESTOR fields x (at most) one rank-R regime
@@ -167,7 +169,7 @@ def _structured_psi_update_compact(
 
     Reference scope: same quantity as smoothing_functions.py:27-59's
     backward kernel applied to the psi recursion (:85); the structure is a
-    TPU redesign with no reference counterpart.
+    redesign with no reference counterpart.
     """
     from hygeia_tpu.two_group.backward import _structured_rho
 
@@ -268,22 +270,9 @@ def _structured_psi_update_compact(
     # Materialise G before the dot: without the barrier XLA fuses the whole
     # column build into the dot's operand load and recomputes it per psi
     # row-tile, making the matmul scale like S_cap * (operand build) instead
-    # of S_cap * MACs (tools/bisect_marginal window sweep).
+    # of S_cap * MACs.
     G = jax.lax.optimization_barrier(G)
-    # matmul_dtype=bfloat16 rounds the OPERANDS one pass through the MXU
-    # with f32 accumulation. MEASURED on chip: no effect at these shapes
-    # (the window-scaling cost is psi-buffer HBM traffic, not MXU flops —
-    # identical walls with and without), so the default stays None (exact
-    # f32); the knob is kept for larger-window experiments.
-    if matmul_dtype is not None:
-        Y = jax.lax.dot(
-            psi_aug.astype(matmul_dtype),
-            G.T.astype(matmul_dtype),
-            preferred_element_type=f32,
-        )
-    else:
-        Y = jax.lax.dot(psi_aug, G.T)  # default precision like the generic
-        # path's einsum
+    Y = jax.lax.dot(psi_aug, G.T, precision=_HIGHEST)
 
     off = 0
     y_cont = Y[:, off : off + M]; off += M
@@ -297,14 +286,14 @@ def _structured_psi_update_compact(
     sA = jnp.arange(R - 1, dtype=jnp.int32)[:, None]
     ctrl_regime = jnp.where(sA < anc.r_k[None, :], sA, sA + 1)  # (R-1, M)
     oh_ctrl = (ctrl_regime[..., None] == regs).astype(f32)  # (R-1, M, R)
-    P_sel = jnp.einsum("smr,xr->smx", oh_ctrl, P)  # P[x, r'(s,m)]
-    y_ctrl = jnp.einsum("zmx,smx->zsm", H1, P_sel)
+    P_sel = jnp.einsum("smr,xr->smx", oh_ctrl, P, precision=_HIGHEST)  # P[x, r'(s,m)]
+    y_ctrl = jnp.einsum("zmx,smx->zsm", H1, P_sel, precision=_HIGHEST)
 
     # case-CP: T1 (q-independent) + sum_y H2 - H2 at y = q(s, m).
     jB = jnp.arange(R - 1, dtype=jnp.int32)[:, None]
     case_regime = jnp.where(jB < anc.r_c[None, :], jB, jB + 1)  # (R-1, M)
     oh_case = (case_regime[..., None] == regs).astype(f32)
-    H2_sel = jnp.einsum("zmy,smy->zsm", H2, oh_case)
+    H2_sel = jnp.einsum("zmy,smy->zsm", H2, oh_case, precision=_HIGHEST)
     y_case = (yT1 + H2.sum(-1))[:, None, :] - H2_sel
 
     num = jnp.concatenate(
@@ -335,7 +324,6 @@ def run_marginal_filter(
     smoothing_window=64,
     weight_dtype=jnp.float32,
     structured=True,
-    psi_matmul_dtype=None,
 ):
     R = params.n_regimes
     M = num_resampled_ancestors
@@ -355,7 +343,7 @@ def run_marginal_filter(
     # 2R*M + R*R instead of N = I*M = 2R*M + R*R*M): the R*R independent
     # proposal children are ancestor-independent STATES shared by all M
     # ancestors, so their psi columns are provably equal — storing one
-    # column per class shrinks the buffer (the step's HBM-traffic driver)
+    # column per class shrinks the buffer (the step's memory-traffic driver)
     # ~3.8x at the production M = 50. Exact, not approximate; the first
     # step's R*R live initial particles occupy full positions < 2R*M and
     # ride the identity part of the mapping.
@@ -391,18 +379,16 @@ def run_marginal_filter(
         else:
             new_cols = new_state
 
-        # The psi buffer (S_cap, F, N) is the marginal step's HBM footprint
-        # (~8 MB/unit at window 64) — at f32 it cannot sit in VMEM, so every
-        # full-buffer pass costs an HBM round trip and the step is traffic-
-        # bound in the window size (measured: ~54 ms per window unit across
-        # the 4096-site bench before the pass-count reductions below).
-        # Passes are kept to: the update's matmul read, the carry write, and
-        # ONE fused read for the means/sum-of-squares reductions.
+        # The psi buffer (S_cap, F, N) is the marginal step's device-memory
+        # footprint (~8 MB/unit at window 64), so every full-buffer pass is
+        # a round trip to device memory and the step is traffic-bound in the
+        # window size. Passes are kept to: the update's matmul read, the
+        # carry write, and ONE fused read for the means/sum-of-squares
+        # reductions.
         if structured:
             # Structured psi update: the (I, M) child layout collapses the
             # (N, N) backward-kernel grid to masked low-rank column
-            # operands — see _structured_psi_update (the marginal filter's
-            # former dominant per-step cost, PERF.md marginal cost model).
+            # operands — see _structured_psi_update.
             # The update is row-linear in psi, so the validity mask is
             # applied to the INPUT rows (fused into the matmul's operand
             # load) instead of as an extra pass over the output.
@@ -412,11 +398,10 @@ def run_marginal_filter(
                 jnp.float32
             )
             psi_new = _structured_psi_update_compact(
-                params, prev_state, w_prev, anc, psi_in,
-                matmul_dtype=psi_matmul_dtype,
+                params, prev_state, w_prev, anc, psi_in
             )
         else:
-            # Generic path (kept for A/B measurement — tools/bisect_marginal):
+            # Generic path (the oracle of the structured update):
             # backward kernels over the full (N_new x N_prev) grid via the
             # backward-specialised kernel (backward._backward_logits).
             logB = _backward_logits(
@@ -426,19 +411,9 @@ def run_marginal_filter(
             B = jnp.where(
                 jnp.isfinite(logBZ), jnp.exp(logB - logBZ), 0.0
             ).astype(jnp.float32)
-            # psi recursion: (S, F, N_prev) x (N_new, N_prev)^T — same
-            # operand-rounding treatment as the structured path so the A/B
-            # is fair.
+            # psi recursion: (S, F, N_prev) x (N_new, N_prev)^T.
             psi_in = jnp.where(psi_valid[:, None, None], psi, 0.0)
-            if psi_matmul_dtype is not None:
-                psi_new = jnp.einsum(
-                    "sfj,nj->sfn",
-                    psi_in.astype(psi_matmul_dtype),
-                    B.astype(psi_matmul_dtype),
-                    preferred_element_type=jnp.float32,
-                )
-            else:
-                psi_new = jnp.einsum("sfj,nj->sfn", psi_in, B)
+            psi_new = jnp.einsum("sfj,nj->sfn", psi_in, B, precision=_HIGHEST)
 
         # Ring-buffer insert for time t (force-finalise oldest on overflow).
         # Only the victim ROW's filtered mean is needed — a (F, N) einsum,
@@ -449,7 +424,7 @@ def run_marginal_filter(
             jnp.argmax(~psi_valid),
             jnp.argmin(jnp.where(psi_valid, psi_time, T + 1)),
         )
-        means_ins = jnp.einsum("fn,n->f", psi_new[ins], w_self)
+        means_ins = jnp.einsum("fn,n->f", psi_new[ins], w_self, precision=_HIGHEST)
         spill = spill + jnp.where(has_free, 0, 1)
         out = jnp.where(
             has_free, out, out.at[psi_time[ins]].set(means_ins)
@@ -465,8 +440,8 @@ def run_marginal_filter(
         # var = E[x^2] - E[x]^2 lets XLA fuse both reductions into one read
         # of the buffer; x in [0, 1] so the f32 cancellation error (~1e-7
         # absolute) is far below any usable epsilon.
-        means = jnp.einsum("sfn,n->sf", psi_new, w_self)
-        sumsq = jnp.einsum("sfn,n->sf", psi_new * psi_new, w_self)
+        means = jnp.einsum("sfn,n->sf", psi_new, w_self, precision=_HIGHEST)
+        sumsq = jnp.einsum("sfn,n->sf", psi_new * psi_new, w_self, precision=_HIGHEST)
         var = sumsq - means * means
         fin = psi_valid & (jnp.all(var < epsilon, axis=1) | (t == T - 1))
         out = out.at[psi_time].set(jnp.where(fin[:, None], means, out[psi_time]))

@@ -1,6 +1,6 @@
 """Case/control (merged/split) change-point regime model as pure functions.
 
-TPU-first re-design of the reference's TFP distribution classes
+Re-design of the reference's TFP distribution classes
 (case_control_regime_model.py, case_control_distributions.py): the latent
 state is a 5-tuple of int arrays
 
@@ -43,9 +43,8 @@ class State(NamedTuple):
     def stack(self):
         """Pack into (5, ...) int32 — storage layout for the filter history.
 
-        The field axis LEADS: TPU arrays tile their last two dims to (8, 128)
-        lanes, so a trailing length-5 axis would pad 25x in HBM (a (T, N, 5)
-        history for one 100k-site segment would claim ~40 GB). With (5, N)
+        The field axis LEADS: tiled device layouts pad the last dimension,
+        so a trailing length-5 axis can pad many times over. With (5, N)
         blocks the last dim is the particle axis and packs densely.
 
         Field order [m, d_c, r_c, d_k, r_k]; external outputs (npz files)
@@ -166,9 +165,9 @@ _RESTORE_INF = -1e29
 def _lookup_log_p(log_p, r_prev, r_nxt, R):
     """log_p[r_prev, r_nxt] for broadcastable int batches, gather-free.
 
-    A table gather keyed on a particle axis lowers to an XLA scalar loop
-    (~37 ns/element; CLAUDE.md rule 7) — inside the backward scan this was a
-    per-step cost. Instead: one-hot select-reduce with -inf encoded as -1e30
+    A table gather keyed on a particle axis can lower to an XLA scalar loop
+    — inside the backward scan a per-step cost. Instead: one-hot
+    select-reduce with -inf encoded as -1e30
     so the products stay exact (one nonzero term per output), then restored.
     Out-of-range indices (the -1 padding particles) yield all-zero one-hots
     and a result of -inf; every consumer masks those slots by their -inf
@@ -178,9 +177,9 @@ def _lookup_log_p(log_p, r_prev, r_nxt, R):
     safe = jnp.where(jnp.isfinite(log_p), log_p, _SAFE_NEG)
     oh_prev = (r_prev[..., None] == regs).astype(safe.dtype)
     oh_nxt = (r_nxt[..., None] == regs).astype(safe.dtype)
-    # tmp[..., i] = safe[i, r_nxt[...]]. HIGHEST precision keeps the MXU from
-    # rounding the f32 table through bf16 passes — the one-hot operand makes
-    # the full-precision product exact (one nonzero term per output).
+    # tmp[..., i] = safe[i, r_nxt[...]]. HIGHEST precision keeps the f32
+    # table from being rounded to TF32/bf16 — the one-hot operand makes the
+    # full-precision product exact (one nonzero term per output).
     tmp = jnp.einsum(
         "...j,ij->...i", oh_nxt, safe, precision=jax.lax.Precision.HIGHEST
     )
@@ -216,12 +215,12 @@ def transition_log_prob(
     on prev, so it hoists the table lookups out of its scan and passes them
     here (two (T, N) gathers total instead of two (N,) gathers per step).
 
-    TPU note: this function performs NO table gathers keyed on a large batch
-    axis — the merged rows are a 2-way select, the control transition row is
-    a one-hot x one-hot matmul sandwich (exact: one nonzero term per output),
+    This function performs NO table gathers keyed on a large batch axis —
+    the merged rows are a 2-way select, the control transition row is a
+    one-hot x one-hot matmul sandwich (exact: one nonzero term per output),
     and the hazards are either precomputed or gathered at small prev shapes
     by gather_rho. Large (next x prev)-shaped gathers were the dominant cost
-    of the backward pass on TPU.
+    of the backward pass where this was first built.
     """
     R = params.n_regimes
     dtypef = params.rho_case.dtype

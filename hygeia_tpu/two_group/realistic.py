@@ -20,6 +20,8 @@ three properties, with the methylation states drawn from the two-group
 generative model itself, and returns the ground truth for recovery checks
 (tests/test_realistic_fixture.py; tools/production_pipeline.py
 HYGEIA_PROD_REALISTIC=1 measures the pipeline on it at chromosome scale).
+``uniform=True`` writes the plain fixture instead: evenly spaced CpGs and
+Poisson depth with no missing sites (chip_smoke.py's main-path fixture).
 """
 
 from __future__ import annotations
@@ -94,9 +96,11 @@ def make_realistic_fixture(
     minimum_duration=3,
     merge_log_prob=None,
     split_prob=0.01,
+    uniform=False,
 ) -> RealisticFixture:
     """Simulate a realistically-shaped chromosome and write the preprocessed
-    count-file set (positions/n_total/n_methylated x control/case)."""
+    count-file set (positions/n_total/n_methylated x control/case).
+    Deterministic in ``seed``."""
     import jax
     import jax.numpy as jnp
 
@@ -109,13 +113,22 @@ def make_realistic_fixture(
     R = len(mu)
     merge_log_prob = np.log(0.1) if merge_log_prob is None else merge_log_prob
 
-    positions, island = realistic_positions(rng, n_sites)
-    n_c = realistic_coverage(
-        rng, n_sites, n_samples, mean_depth=mean_depth, missing_prob=missing_prob
-    )
-    n_k = realistic_coverage(
-        rng, n_sites, n_samples, mean_depth=mean_depth, missing_prob=missing_prob
-    )
+    if uniform:
+        positions = np.arange(1, n_sites + 1, dtype=np.int64) * 37
+        island = np.zeros(n_sites, bool)
+        n_c, n_k = (
+            rng.poisson(mean_depth, size=(n_sites, n_samples)).astype(np.float32)
+            for _ in range(2)
+        )
+    else:
+        positions, island = realistic_positions(rng, n_sites)
+        n_c, n_k = (
+            realistic_coverage(
+                rng, n_sites, n_samples, mean_depth=mean_depth,
+                missing_prob=missing_prob,
+            )
+            for _ in range(2)
+        )
 
     Pd = rng.dirichlet(np.ones(R - 1), size=R)
     P = np.zeros((R, R))

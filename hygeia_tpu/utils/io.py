@@ -13,10 +13,24 @@ Two distinct conventions exist in the reference and both are preserved:
 
 from __future__ import annotations
 
+import csv
+import gzip
 import os
 
 import numpy as np
-import pandas as pd
+
+
+def require_pandas(what):
+    """pandas, which only the BED/gemBS preprocess verbs and BED export
+    use; a clear error where it is not installed."""
+    try:
+        import pandas
+    except ImportError as e:
+        raise ImportError(
+            f"{what} needs pandas, an optional dependency: "
+            "pip install 'hygeia-tpu[bed]'"
+        ) from e
+    return pandas
 
 
 def _ensure_dir(path):
@@ -25,19 +39,93 @@ def _ensure_dir(path):
         os.makedirs(d, exist_ok=True)
 
 
+def _open_text(path, mode):
+    """Text handle on ``path``; gzip (level 1 when writing) for .gz names."""
+    if str(path).endswith(".gz"):
+        return gzip.open(path, mode + "t", compresslevel=1, newline="")
+    return open(path, mode, newline="")
+
+
+def format_column(values, float_format=None):
+    """CSV cells for one column, as pandas' to_csv writes them: integers
+    and strings as str(), floats as the shortest repr of their own dtype
+    (or ``float_format % v``), NaN as an empty cell."""
+    a = np.asarray(values)
+    if a.dtype.kind == "f":
+        if float_format is not None:
+            cells = np.array([float_format % v for v in a.tolist()], object)
+        else:
+            cells = a.astype(str).astype(object)
+        cells[np.isnan(a)] = ""
+        return cells
+    return a.astype(str)
+
+
+def write_csv(path, columns, header=None, sep=",", float_format=None):
+    """Write equal-length 1-D columns as a delimited text table (gzip for
+    .gz names) with the cell text of pandas' to_csv (format_column)."""
+    _ensure_dir(path)
+    cells = [format_column(c, float_format) for c in columns]
+    with _open_text(path, "w") as f:
+        if header is not None:
+            f.write(sep.join(header) + "\n")
+        if len(cells) == 1:
+            # A lone empty cell would be a blank line; pandas quotes it.
+            f.writelines((c or '""') + "\n" for c in cells[0])
+        else:
+            f.writelines(sep.join(row) + "\n" for row in zip(*cells))
+
+
+def read_headed_table(path, sep=","):
+    """(header, float64 (rows, cols) array) of a headed delimited table."""
+    with _open_text(path, "r") as f:
+        rows = list(csv.reader(f, delimiter=sep))
+    header, body = rows[0], rows[1:]
+    data = np.array(
+        [[float(x) if x else np.nan for x in r] for r in body], np.float64
+    ).reshape(len(body), len(header))
+    return header, data
+
+
+def write_float_table(path, values, *, index=None, header=None, sep=","):
+    """Float table at %.9g (round-trips float32; integral values as "k.0")
+    through the native writer, or a Python fallback of the same text."""
+    from hygeia_tpu.native.loader import write_float_table_gz
+
+    if str(path).endswith(".gz") and write_float_table_gz(
+        path, values, index=index, header=header, sep=sep
+    ):
+        return
+    v = np.asarray(values, np.float64)
+    v = v[:, None] if v.ndim == 1 else v
+
+    def cell(x):
+        if np.isfinite(x) and x == int(x) and abs(x) < 1e15:
+            return f"{int(x)}.0"
+        return "%.9g" % x
+
+    cols = [np.array([cell(x) for x in c.tolist()], object) for c in v.T]
+    if index is not None:
+        cols.insert(0, np.asarray(index, np.int64))
+    write_csv(path, cols, header=header.split(sep) if header else None,
+              sep=sep)
+
+
 # ---------- two-group count files (header-less, comma-separated) ----------
 
 def read_count_matrix(path, dtype=np.float32):
     """(T, S) matrix from a header-less comma-separated .txt.gz.
 
     Uses the native zlib/multithreaded parser (hygeia_tpu/native) when its
-    shared library is available, with a pandas fallback."""
+    shared library is available, with a NumPy fallback."""
     from hygeia_tpu.native.loader import load_matrix
 
     m = load_matrix(path)
-    if m is not None:
-        return m.astype(dtype, copy=False)
-    return pd.read_table(path, sep=",", header=None).to_numpy(dtype)
+    if m is None:
+        with _open_text(path, "r") as f:
+            rows = [r for r in csv.reader(f) if r]
+        m = np.array(rows, np.float64).reshape(len(rows), -1 if rows else 0)
+    return m.astype(dtype, copy=False)
 
 
 def read_positions(path):
@@ -45,19 +133,13 @@ def read_positions(path):
 
 
 def write_count_matrix(path, arr):
-    """np.savetxt(fmt="%s")-compatible writer, byte-identical output.
-
-    savetxt formats every row in Python (~1.7 s per production 110k-site
-    count file at level-9 gzip); pandas' C writer with level-1 gzip emits
-    the SAME bytes after decompression (str()-shortest float repr both
-    ways; verified byte-for-byte on f32 counts and i64 positions) ~12x
-    faster. INFER writes 5 of these per work unit.
+    """np.savetxt(fmt="%s")-compatible writer: one row per site, shortest
+    repr per cell, no header.
 
     Integer arrays take the native itoa + parallel-gzip writer
-    (native/loader.write_int_table_gz) — same decompressed bytes
-    ("%s" of an int has no decimal point), another ~8x on the int16
-    trimmed-count files (regression: test_more_components byte-identity,
-    which routes its i64 case through this path)."""
+    (native/loader.write_int_table_gz) — same decompressed bytes ("%s" of
+    an int has no decimal point; regression: test_more_components
+    byte-identity, which routes its i64 case through this path)."""
     _ensure_dir(path)
     a = np.asarray(arr)
     if a.ndim == 1:
@@ -67,49 +149,41 @@ def write_count_matrix(path, arr):
 
         if write_int_table_gz(path, a, sep=",", level=1):
             return
-    df = pd.DataFrame(a)
-    compression = (
-        {"method": "gzip", "compresslevel": 1}
-        if str(path).endswith(".gz")
-        else None
-    )
-    df.to_csv(path, header=False, index=False, compression=compression)
+    write_csv(path, list(a.T))
 
 
 # ---------- single-group engine files (headed CSVs) ----------
 
 def read_headed_matrix(path):
     """(n_samples, n_sites): stored transposed with sample_i columns."""
-    return pd.read_csv(path).to_numpy().T
+    return read_headed_table(path)[1].T
 
 
 def read_headed_column(path):
-    return pd.read_csv(path).iloc[:, 0].to_numpy()
+    return read_headed_table(path)[1][:, 0]
 
 
 def write_headed_column(path, values, name):
-    _ensure_dir(path)
-    pd.DataFrame({name: np.asarray(values)}).to_csv(path, index=False)
+    write_csv(path, [np.asarray(values)], header=[name])
 
 
 def write_headed_matrix(path, matrix, prefix):
     """Write a (k, n) matrix with `{prefix}_i` columns (R convention: the
     count matrices are transposed to (n_sites, n_samples) first)."""
-    _ensure_dir(path)
     m = np.asarray(matrix)
-    cols = [f"{prefix}_{i + 1}" for i in range(m.shape[0])]
-    pd.DataFrame(m.T, columns=cols).to_csv(path, index=False)
+    write_csv(
+        path, list(m), header=[f"{prefix}_{i + 1}" for i in range(m.shape[0])]
+    )
 
 
 def read_theta(path):
     """theta vector from the single-group `data`-column CSV."""
-    df = pd.read_table(path, sep=",")
-    return pd.to_numeric(df["data"]).to_numpy()
+    header, data = read_headed_table(path)
+    return data[:, header.index("data")]
 
 
 def write_theta(path, theta):
-    _ensure_dir(path)
-    pd.DataFrame({"data": np.asarray(theta)}).to_csv(path, index=False)
+    write_headed_column(path, theta, "data")
 
 
 def theta_file_to_p_softmax(theta, n_regimes):
@@ -139,14 +213,13 @@ def savez_fast(path, arr, level=1):
 
     numpy pins its npz deflate at level 6; at production scale the INFER
     stage writes ~0.5 GB of trajectory archives per chromosome and the
-    compression wall was a visible share of the warm stage (PERF.md pipeline
-    table). An .npz is just a zip of .npy members, so writing the member
-    through zipfile with compresslevel=1 produces a file np.load reads
+    compression wall was a visible share of the warm stage. An .npz is
+    just a zip of .npy members, so writing the member through zipfile with
+    compresslevel=1 produces a file np.load reads
     identically (key "arr_0", like np.savez_compressed(path, arr)).
     level=0 writes STORED members — even level-1 deflate of the big
-    trajectory archives is CPU-bound on this 2-core host (~25 s of wall
-    after the single compute chunk at production scale); np.load reads
-    stored members identically and disk bandwidth absorbs the size."""
+    trajectory archives is CPU-bound; np.load reads stored members
+    identically and disk bandwidth absorbs the size."""
     import io as _io
     import zipfile
 

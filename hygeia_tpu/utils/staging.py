@@ -3,7 +3,7 @@
 The reference stages all Nextflow work directories on S3
 (`/root/reference/run.sh:6` `-bucket-dir s3://hygeia-test-1/nextflow_workdir`,
 `/root/reference/aws.config:1-12`) so that `-resume` caching works across
-machines/fleets. The TPU orchestrator's analog: `hygeia run --run_bucket_dir
+machines/fleets. The orchestrator's analog: `hygeia run --run_bucket_dir
 URL` mirrors the output tree (stage outputs + `.done` markers) to any
 fsspec-addressable store after every completed stage, and restores it before
 a `--resume` run — a fresh machine resumes exactly where the fleet left off.

@@ -21,11 +21,10 @@ import os
 import sys
 from pathlib import Path
 
-os.environ.setdefault("HYGEIA_PLATFORM", "cpu")
+os.environ["JAX_PLATFORMS"] = "cpu"
 
 import jax
 
-jax.config.update("jax_platforms", "cpu")
 # Match the test environment (tests/conftest.py): true float64 weights.
 jax.config.update("jax_enable_x64", True)
 

@@ -1,6 +1,7 @@
 """Hazard-table tests against direct NumPy ports of the reference recursions."""
 
 import numpy as np
+import pytest
 import scipy.stats as st
 
 from hygeia_tpu.ops.hazard import (
@@ -169,3 +170,30 @@ def test_gather_rho_clamps():
     np.testing.assert_allclose(float(v_in[0]), float(rho[0, 4]))
     v_clamped = gather_rho(rho, jnp.asarray([100]), jnp.asarray([0]))
     np.testing.assert_allclose(float(v_clamped[0]), float(rho[0, 19]))
+
+
+@pytest.mark.parametrize(
+    "table, rtol", [("rho", 1e-3), ("grad_omega_log_rho", 1e-2)]
+)
+def test_float32_table_tracks_float64_recursion(table, rtol):
+    """float32 takes the survival in closed form instead of 1 - running sum,
+    which cancels below S ~ 1e-4 and depends on the device's summation
+    order: it stays within float32 precision of the float64 recursion down
+    to S = 1e-6, where the running-sum form is off by orders of magnitude."""
+    kappa = np.full(4, 2.0)
+    omega = np.array([0.2, 0.5, 0.9, 0.97])
+    u, d_max = 3, 600
+    ref = hazard_table_with_grads(jnp.asarray(kappa), jnp.asarray(omega), u, d_max)
+    got = hazard_table_with_grads(
+        jnp.asarray(kappa, jnp.float32), jnp.asarray(omega, jnp.float32), u, d_max
+    )
+    mask = _well_conditioned_mask(kappa, omega, u, d_max, tol=1e-6)
+    np.testing.assert_allclose(
+        np.asarray(got[table], np.float64)[mask], np.asarray(ref[table])[mask],
+        rtol=rtol, atol=1e-6,
+    )
+    rho32, exit32 = hazard_table(
+        jnp.asarray(kappa, jnp.float32), jnp.asarray(omega, jnp.float32), u, d_max
+    )
+    np.testing.assert_array_equal(np.asarray(rho32), np.asarray(got["rho"]))
+    assert not np.asarray(exit32)[mask].any()

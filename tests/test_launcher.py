@@ -1,8 +1,8 @@
 """Multi-host launcher test: a real 2-process jax.distributed CPU cluster.
 
 The reference scales across machines with AWS Batch + file staging
-(aws.config, nextflow.config:29); the TPU-native analog is jax.distributed
-over a global mesh (parallel/launcher.py). This test spawns two OS processes
+(aws.config, nextflow.config:29); the analog here is jax.distributed over a
+global mesh (parallel/launcher.py). This test spawns two OS processes
 that connect through `initialize_distributed`, build one global mesh spanning
 both processes' devices, and reduce across it with a psum over the "genome"
 axis — covering the process_count > 1 code path end to end.
@@ -15,9 +15,8 @@ import sys
 _WORKER = r"""
 import os, sys
 os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=2"
-os.environ.pop("JAX_PLATFORMS", None)
+os.environ["JAX_PLATFORMS"] = "cpu"
 import jax
-jax.config.update("jax_platforms", "cpu")
 import numpy as np
 import jax.numpy as jnp
 from functools import partial
@@ -78,3 +77,31 @@ def test_two_process_distributed_psum(tmp_path):
     # sum over both processes: (0+..+5) + (100+..+105) = 15 + 615 = 630
     for out in outs:
         assert "RESULT 630.0" in out, out
+
+
+def test_no_coordinator_runs_as_one_process(monkeypatch):
+    from hygeia_tpu.parallel.launcher import initialize_distributed
+
+    monkeypatch.delenv("JAX_COORDINATOR_ADDRESS", raising=False)
+    assert initialize_distributed() == (0, 1)
+
+
+def test_init_failure_propagates(monkeypatch):
+    """A process that cannot join its cluster must not run on alone."""
+    import jax
+    import pytest
+
+    from hygeia_tpu.parallel.launcher import initialize_distributed
+
+    def refuse(**kwargs):
+        raise RuntimeError("coordinator unreachable")
+
+    monkeypatch.setattr(jax.distributed, "is_initialized", lambda: False)
+    monkeypatch.setattr(jax.distributed, "initialize", refuse)
+    with pytest.raises(RuntimeError, match="coordinator unreachable"):
+        initialize_distributed(
+            coordinator_address="localhost:1", num_processes=2, process_id=0
+        )
+    monkeypatch.setenv("JAX_COORDINATOR_ADDRESS", "localhost:1")
+    with pytest.raises(RuntimeError, match="coordinator unreachable"):
+        initialize_distributed()

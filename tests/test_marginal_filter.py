@@ -154,7 +154,6 @@ def test_marginal_filter_structured_matches_generic_run():
     )
     kw = dict(
         epsilon=0.01, smoothing_window=12, weight_dtype=jnp.float64,
-        psi_matmul_dtype=None,  # f32 contraction: compare the PATHS exactly
     )
     a = run_marginal_filter(
         jax.random.PRNGKey(2), params, E_c, E_k, 20, structured=True, **kw

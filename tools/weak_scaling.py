@@ -3,7 +3,7 @@ virtual CPU mesh (VERDICT round-4 item 7; BASELINE.md scaling target;
 the reference's scaling story is its Nextflow fan-out, main.nf:44-70).
 
 Fixed per-device work (one genome block x one seed), devices 1/2/4/8,
-halo vs exchange. On a virtual mesh the host's 2 cores are oversubscribed,
+halo vs exchange. On a virtual mesh the host's cores are oversubscribed,
 so WALL times only bound the trend; the algorithmic claims checked are:
 
 * per-device output shapes and program structure are n-independent,
@@ -11,10 +11,10 @@ so WALL times only bound the trend; the algorithmic claims checked are:
   compiled HLO) is O(1) in the device count — boundary cost does not grow
   with the mesh,
 * total wall grows sublinearly in devices (it would be ~flat on real
-  chips; on 2 shared cores the bound is ~n/cores).
+  devices; on shared cores the bound is ~n/cores).
 
 Run: XLA_FLAGS=--xla_force_host_platform_device_count=8 \
-     HYGEIA_PLATFORM=cpu PYTHONPATH=/root/repo python tools/weak_scaling.py
+     JAX_PLATFORMS=cpu PYTHONPATH=. python tools/weak_scaling.py
 """
 
 import json
@@ -37,9 +37,6 @@ def hlo_collective_counts(jit_fn, *args):
 
 def main():
     import jax
-
-    if os.environ.get("HYGEIA_PLATFORM"):
-        jax.config.update("jax_platforms", os.environ["HYGEIA_PLATFORM"])
     import jax.numpy as jnp
 
     from hygeia_tpu.parallel import make_mesh, sharded_two_group_inference
